@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh, periodic_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.fem.cg import (
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh, periodic_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.fem.cg import (
     build_cg_space,
     cg_project_dg,
     cg_gather,
     cg_mass_solve,
     cg_mass_matvec,
 )
-from incompressibleeulerhdg_tpu.ops import fields as F
+from incompressibleeulerhdg.ops import fields as F
 
 
 def test_cg_space_dof_counts():
@@ -54,7 +54,7 @@ def test_cg_mass_matvec_symmetric_and_integral():
 def test_tracer_conservation_and_constant_preservation():
     """Upwind DG tracer advection with a divergence-free CG-projected velocity
     preserves constants and total mass on a periodic mesh."""
-    from incompressibleeulerhdg_tpu.ops.tracer import tracer_step
+    from incompressibleeulerhdg.ops.tracer import tracer_step
 
     disc = HDGDiscretisation(periodic_square_mesh(6), 1)
     g = disc.geom
@@ -76,9 +76,9 @@ def test_tracer_conservation_and_constant_preservation():
 
 def test_vorticity_projection_rigid_rotation():
     """curl of the rigid rotation (y-c, -(x-c)) is -2 everywhere."""
-    from incompressibleeulerhdg_tpu.ops.vorticity import vorticity_project
-    from incompressibleeulerhdg_tpu.fem.lagrange import triangle_basis
-    from incompressibleeulerhdg_tpu.fem.spaces import facet_ref_points
+    from incompressibleeulerhdg.ops.vorticity import vorticity_project
+    from incompressibleeulerhdg.fem.lagrange import triangle_basis
+    from incompressibleeulerhdg.fem.spaces import facet_ref_points
 
     disc = HDGDiscretisation(unit_square_mesh(4), 1)
     degree = disc.degree + 1
@@ -100,7 +100,7 @@ def test_vorticity_projection_rigid_rotation():
 
 
 def test_vtk_writer_roundtrip(tmp_path):
-    from incompressibleeulerhdg_tpu.utils.vtk import (
+    from incompressibleeulerhdg.utils.vtk import (
         write_vtu,
         VTKTimeSeries,
         sample_dg_at_corners,
@@ -128,7 +128,7 @@ def test_vtk_writer_roundtrip(tmp_path):
 
 
 def test_performance_log_and_averager():
-    from incompressibleeulerhdg_tpu.utils.logging import PerformanceLog, Averager
+    from incompressibleeulerhdg.utils.logging import PerformanceLog, Averager
 
     PerformanceLog.reset()
     with PerformanceLog("unit"):
@@ -139,10 +139,50 @@ def test_performance_log_and_averager():
         av.update(v)
     assert abs(av.value - 2.0) < 1e-14
     assert av.n_samples == 3
+    assert av.min == 1.0
+
+
+def test_progress_line_reports_each_step():
+    import io
+    from incompressibleeulerhdg.utils.logging import progress
+
+    out = io.StringIO()
+    assert list(progress(range(2, 5), out=out)) == [2, 3, 4]
+    text = out.getvalue()
+    assert "step 3/5" in text and "step 5/5" in text and text.endswith("\n")
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper returns it and changes
+    no JAX setting."""
+    import jax
+    from incompressibleeulerhdg.utils.compile_cache import (
+        compile_cache_dir,
+        enable_compile_cache,
+    )
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache_dir() == str(tmp_path)
+    assert enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_checkout(monkeypatch):
+    """Without the env var the cache is the fixed, git-ignored .jax_cache/
+    at the checkout root — the same path in every process."""
+    import os
+    from incompressibleeulerhdg.utils.compile_cache import compile_cache_dir
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compile_cache_dir() == os.path.join(root, ".jax_cache")
+    ignored = open(os.path.join(root, ".gitignore")).read().split()
+    assert ".jax_cache/" in ignored
 
 
 def test_gridspacing():
-    from incompressibleeulerhdg_tpu.utils.grid import gridspacing
+    from incompressibleeulerhdg.utils.grid import gridspacing
 
     h_min, h_max = gridspacing(unit_square_mesh(4))
     assert abs(h_min - 0.25) < 1e-12
@@ -152,7 +192,7 @@ def test_gridspacing():
 def test_rt_element_basics():
     """RT interpolation/evaluation: interpolating a constant field reproduces
     it; divergence of the interpolant of a linear field is exact."""
-    from incompressibleeulerhdg_tpu.ops import rt as RT
+    from incompressibleeulerhdg.ops import rt as RT
 
     disc = HDGDiscretisation(unit_square_mesh(4), 0)
     g = disc.geom
@@ -172,7 +212,7 @@ def test_rt_element_basics():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from incompressibleeulerhdg_tpu.utils.checkpoint import save_checkpoint, load_checkpoint
+    from incompressibleeulerhdg.utils.checkpoint import save_checkpoint, load_checkpoint
 
     path = str(tmp_path / "ck" / "state.npz")
     state = {

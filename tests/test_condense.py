@@ -10,17 +10,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.ops import fields as F
-from incompressibleeulerhdg_tpu.ops import forms
-from incompressibleeulerhdg_tpu.linalg.condense import (
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.ops import fields as F
+from incompressibleeulerhdg.ops import forms
+from incompressibleeulerhdg.linalg.condense import (
     build_condensed_system,
     trace_matvec,
     condense_rhs,
     back_substitute,
 )
-from incompressibleeulerhdg_tpu.linalg.pressure import pressure_solve
+from incompressibleeulerhdg.linalg.pressure import pressure_solve
 
 
 def mixed_matvec(disc, Q, p, lam):

@@ -8,13 +8,13 @@ connectivity').
 import numpy as np
 import pytest
 
-from incompressibleeulerhdg_tpu.fem.quadrature import triangle_quadrature, edge_quadrature
-from incompressibleeulerhdg_tpu.fem.lagrange import (
+from incompressibleeulerhdg.fem.quadrature import triangle_quadrature, edge_quadrature
+from incompressibleeulerhdg.fem.lagrange import (
     triangle_basis,
     edge_basis,
     shifted_legendre,
 )
-from incompressibleeulerhdg_tpu.mesh.generators import (
+from incompressibleeulerhdg.mesh.generators import (
     unit_square_mesh,
     periodic_square_mesh,
     unit_disk_mesh,

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh, periodic_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.ops import fields as F
-from incompressibleeulerhdg_tpu.ops import forms
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh, periodic_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.ops import fields as F
+from incompressibleeulerhdg.ops import forms
 
 
 @pytest.fixture(params=[1, 2], ids=["k1", "k2"])
@@ -135,7 +135,7 @@ def test_trace_reconstruction_consistency(disc):
     """For continuous Q and p, the reconstructed trace solves
     2 tau lam = (Q+-Q-).n + tau (p+ + p-) => lam = p's trace (interior)."""
     g = disc.geom
-    import incompressibleeulerhdg_tpu.ops.fields as F2
+    import incompressibleeulerhdg.ops.fields as F2
 
     Q = disc.interpolate_velocity(lambda x, y: (x * 0 + 1.0, y * 0 - 2.0))
     p = disc.interpolate_pressure(lambda x, y: 0.3 * x + 0.9 * y)

@@ -8,21 +8,21 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import (
+from incompressibleeulerhdg.mesh.generators import (
     unit_square_mesh,
     periodic_square_mesh,
     unit_disk_mesh,
 )
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.models.problems import (
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.models.problems import (
     TaylorGreen,
     KelvinHelmholtz,
     DoubleLayerShearFlow,
 )
-from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+from incompressibleeulerhdg.timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332,
 )
-from incompressibleeulerhdg_tpu.ops import fields as F
+from incompressibleeulerhdg.ops import fields as F
 
 
 def kinetic_energy(geom, Q):
@@ -39,7 +39,7 @@ def divergence_norm(geom, Q):
 def test_kelvin_helmholtz_disk_end_to_end():
     """Multi-step IMEX solve on the unstructured disk mesh: the rotating-disk
     flow stays finite, near-divergence-free, and does not gain energy
-    (reference path /root/reference/src/driver.py:183-185)."""
+    (reference path reference src/driver.py:183-185)."""
     disc = HDGDiscretisation(unit_disk_mesh(2), 1)
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, 0.05)
     problem = KelvinHelmholtz(disc)
@@ -58,7 +58,7 @@ def test_kelvin_helmholtz_disk_end_to_end():
 def test_shear_layer_periodic_end_to_end():
     """Multi-step IMEX solve of the double shear layer on the periodic mesh:
     finite fields, bounded energy, small divergence
-    (reference path /root/reference/src/driver.py:182)."""
+    (reference path reference src/driver.py:182)."""
     disc = HDGDiscretisation(periodic_square_mesh(8), 1)
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, 0.05)
     problem = DoubleLayerShearFlow(disc)
@@ -78,7 +78,7 @@ def test_imex_tracer_advects_with_cg_projected_velocity(monkeypatch):
     """The IMEX tracer stages use the CG-projected stage velocity
     (project_onto_cg=True parity, reference hdg_imex.py:426-431 /
     common.py:119-122): marking the projection changes the tracer output."""
-    import incompressibleeulerhdg_tpu.timesteppers.hdg_imex as hx
+    import incompressibleeulerhdg.timesteppers.hdg_imex as hx
 
     disc = HDGDiscretisation(unit_square_mesh(4), 1)
     problem = TaylorGreen(disc)
@@ -97,7 +97,7 @@ def test_imex_tracer_advects_with_cg_projected_velocity(monkeypatch):
     run()
 
     calls = []
-    from incompressibleeulerhdg_tpu.ops.tracer import cg_project_velocity as real_cg
+    from incompressibleeulerhdg.ops.tracer import cg_project_velocity as real_cg
 
     def spy(geom, cg, u):
         calls.append(1)
@@ -146,13 +146,13 @@ def test_checkpoint_resume_non_imex(tmp_path, family):
     """Checkpoint/resume for the non-IMEX scheme families (VERDICT round 2,
     item 10: extend checkpoint/resume beyond HDG IMEX).  Interrupt at step
     k, resume, and land exactly on the uninterrupted run's state."""
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_implicit import (
+    from incompressibleeulerhdg.timesteppers.hdg_implicit import (
         IncompressibleEulerHDGImplicit,
     )
-    from incompressibleeulerhdg_tpu.timesteppers.dg_implicit import (
+    from incompressibleeulerhdg.timesteppers.dg_implicit import (
         IncompressibleEulerDGImplicit,
     )
-    from incompressibleeulerhdg_tpu.timesteppers.conforming_implicit import (
+    from incompressibleeulerhdg.timesteppers.conforming_implicit import (
         IncompressibleEulerConformingImplicit,
     )
 
@@ -198,11 +198,11 @@ def test_disk_mesh_iteration_growth_bounded():
     """GTMG-preconditioned pressure iterations grow slowly under refinement
     of the unstructured disk mesh (round-1 verdict: mesh-independence on
     unstructured meshes was unproven; the reference's GTMG+ASMStar target is
-    near-constant counts, /root/reference/src/timesteppers/hdg_imex.py:128-170)."""
-    from incompressibleeulerhdg_tpu.mesh.generators import unit_disk_mesh
-    from incompressibleeulerhdg_tpu.linalg.condense import build_condensed_system
-    from incompressibleeulerhdg_tpu.linalg.gtmg import build_gtmg, gtmg_apply
-    from incompressibleeulerhdg_tpu.linalg.pressure import pressure_solve
+    near-constant counts, reference src/timesteppers/hdg_imex.py:128-170)."""
+    from incompressibleeulerhdg.mesh.generators import unit_disk_mesh
+    from incompressibleeulerhdg.linalg.condense import build_condensed_system
+    from incompressibleeulerhdg.linalg.gtmg import build_gtmg, gtmg_apply
+    from incompressibleeulerhdg.linalg.pressure import pressure_solve
 
     its = []
     for ref in (3, 4, 5):
@@ -230,8 +230,8 @@ def test_disk_mesh_iteration_growth_bounded():
 def test_pressure_solve_reports_stall():
     """A solve cut off before convergence reports relres above tolerance
     instead of silently looking converged (VERDICT round 1, weakness 6)."""
-    from incompressibleeulerhdg_tpu.linalg.condense import build_condensed_system
-    from incompressibleeulerhdg_tpu.linalg.pressure import pressure_solve
+    from incompressibleeulerhdg.linalg.condense import build_condensed_system
+    from incompressibleeulerhdg.linalg.pressure import pressure_solve
 
     disc = HDGDiscretisation(unit_square_mesh(8), 1)
     g = disc.geom
@@ -253,7 +253,7 @@ def test_pressure_solve_reports_stall():
 
 def test_solver_stall_warning(monkeypatch):
     """The IMEX driver loop warns when Krylov solves stall above tolerance."""
-    from incompressibleeulerhdg_tpu.timesteppers.common import IncompressibleEuler
+    from incompressibleeulerhdg.timesteppers.common import IncompressibleEuler
 
     # rtol 0 is unreachable by construction (any positive residual stalls):
     # a finite-but-tiny target no longer works — the symmetric colored

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.linalg.krylov import gmres, fgmres, cg, deflate_constant
-from incompressibleeulerhdg_tpu.linalg.smallinv import batched_inv
-from incompressibleeulerhdg_tpu.timesteppers.tableaus import (
+from incompressibleeulerhdg.linalg.krylov import gmres, fgmres, cg, deflate_constant
+from incompressibleeulerhdg.linalg.smallinv import inv_bl
+from incompressibleeulerhdg.timesteppers.tableaus import (
     TABLEAUS,
     unroll_residual_coefficients,
 )
@@ -82,12 +82,21 @@ def test_fgmres_with_nonlinear_preconditioner():
     assert float(jnp.linalg.norm(A @ x - b) / jnp.linalg.norm(b)) < 1e-9
 
 
-def test_batched_inv_f64_newton():
-    rng = np.random.default_rng(9)
-    A = rng.standard_normal((7, 12, 12)) + 6 * np.eye(12)
-    Ainv = batched_inv(jnp.asarray(A))
-    err = jnp.einsum("bij,bjk->bik", jnp.asarray(A), Ainv) - jnp.eye(12)
-    assert float(jnp.abs(err).max()) < 1e-15 if Ainv.dtype == jnp.float64 else 1e-5
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [8, 20, 30])
+def test_batched_inverse_matches_numpy(dtype, n):
+    """The batch-last block inverse matches numpy.linalg.inv on diagonally
+    dominant blocks (the preconditioner blocks' class) at the block sizes
+    of degrees k=1..3 (n = 2 * d1(k+1): 12, 20, 30)."""
+    rng = np.random.default_rng(n)
+    m = 37
+    A = rng.standard_normal((m, n, n)) * 0.3 + 2.0 * n ** 0.5 * np.eye(n)
+    ref = np.linalg.inv(A).transpose(1, 2, 0)  # batch-last
+    got = np.asarray(inv_bl(jnp.asarray(A.transpose(1, 2, 0), dtype)))
+    assert got.dtype == dtype and got.shape == (n, n, m)
+    # f32 round-off grows ~n * cond (cond < 2 for these blocks)
+    tol = 1e-13 if dtype == np.float64 else 50 * n * np.finfo(np.float32).eps
+    assert np.abs(got - ref).max() < tol * np.abs(ref).max()
 
 
 # ---------------------------------------------------------------------------
@@ -155,22 +164,3 @@ def test_unrolled_residuals_match_recursion(name):
         unrolled = alpha[i] @ Q + dt * beta[i] @ bfield
         assert abs(unrolled - residual(i)) < 1e-12, (name, i)
     assert abs(alpha_f @ Q + dt * beta_f @ bfield - final_residual()) < 1e-12
-
-
-def test_gauss_jordan_pallas_kernel_matches():
-    """The Pallas VMEM-resident Gauss-Jordan kernel (interpret mode on CPU)
-    reproduces the XLA fori_loop inverse, including the identity-padded
-    remainder block."""
-    import jax.numpy as jnp
-    from incompressibleeulerhdg_tpu.linalg.smallinv import (
-        _gj_pallas,
-        gauss_jordan_inv_bl,
-    )
-
-    rng = np.random.default_rng(5)
-    n, m = 8, 700  # m NOT a multiple of the 512 block: exercises padding
-    A = rng.standard_normal((n, n, m)) * 0.1 + 3.0 * np.eye(n)[:, :, None]
-    A32 = jnp.asarray(A, jnp.float32)
-    ref = np.asarray(gauss_jordan_inv_bl(A32))
-    got = np.asarray(_gj_pallas(A32, interpret=True))
-    assert np.allclose(got, ref, atol=5e-5), np.abs(got - ref).max()

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh, periodic_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.ops import fields as F
-from incompressibleeulerhdg_tpu.ops.projection import build_bdm_projection, project_bdm
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh, periodic_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.ops import fields as F
+from incompressibleeulerhdg.ops.projection import build_bdm_projection, project_bdm
 
 
 @pytest.fixture(params=[0, 1, 2], ids=["k0", "k1", "k2"])

@@ -15,13 +15,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.models.problems import TaylorGreen
-from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.models.problems import TaylorGreen
+from incompressibleeulerhdg.timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332,
 )
-from incompressibleeulerhdg_tpu.parallel.slab import (
+from incompressibleeulerhdg.parallel.slab import (
     build_slab_decomposition,
     make_distributed_step,
     scatter_state,
@@ -148,7 +148,7 @@ def test_n_devices_hdg_implicit_slab_uneven():
     """The simple-step slab path also accepts uneven decompositions:
     --n_devices 3 at nx=8 (VERDICT round 3, next-round item 8's 'done'
     criterion)."""
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_implicit import (
+    from incompressibleeulerhdg.timesteppers.hdg_implicit import (
         IncompressibleEulerHDGImplicit,
     )
 
@@ -206,7 +206,7 @@ def test_driver_n_devices_cli(tmp_path, monkeypatch, capsys):
     """The --n_devices driver flag runs the slab-decomposed solve end to end
     (the user-facing analogue of the reference's transparent mpiexec -n) and
     reproduces the single-device Taylor-Green error norms."""
-    from incompressibleeulerhdg_tpu.cli.driver import main
+    from incompressibleeulerhdg.cli.driver import main
 
     monkeypatch.chdir(tmp_path)
     main(
@@ -232,7 +232,7 @@ def test_n_devices_dg_implicit_slab():
     the scalable path beyond IMEX; slab_context in timesteppers/common.py)
     and match the single-device solve.  The monolithic FGMRES inner
     products / nullspace deflation are global psum reductions."""
-    from incompressibleeulerhdg_tpu.timesteppers.dg_implicit import (
+    from incompressibleeulerhdg.timesteppers.dg_implicit import (
         IncompressibleEulerDGImplicit,
     )
 
@@ -256,7 +256,7 @@ def test_n_devices_hdg_implicit_slab():
     """HDG implicit (Chorin projection) through the slab decomposition
     matches the single-device solve with identical iteration counts up to
     psum reduction-order flips."""
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_implicit import (
+    from incompressibleeulerhdg.timesteppers.hdg_implicit import (
         IncompressibleEulerHDGImplicit,
     )
 
@@ -281,10 +281,10 @@ def test_simple_slab_collective_audit():
     """The dg/hdg-implicit slab step also lowers to halos + reductions only
     — zero all-gathers (the round-3 verdict's 'correct, not scalable' GSPMD
     fallback no longer carries these schemes on structured meshes)."""
-    from incompressibleeulerhdg_tpu.parallel.slab import (
+    from incompressibleeulerhdg.parallel.slab import (
         make_distributed_simple_step,
     )
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_implicit import (
+    from incompressibleeulerhdg.timesteppers.hdg_implicit import (
         IncompressibleEulerHDGImplicit,
     )
 
@@ -317,9 +317,9 @@ def test_slab_step_matches_single_device_periodic():
     circular ppermute halos and the extended GTMG vertex canvas; the
     distributed step must match the single-device step on the double shear
     layer (reference analogue: MPI runs of --problem shear,
-    /root/reference/src/driver.py:182)."""
-    from incompressibleeulerhdg_tpu.mesh.generators import periodic_square_mesh
-    from incompressibleeulerhdg_tpu.models.problems import DoubleLayerShearFlow
+    reference src/driver.py:182)."""
+    from incompressibleeulerhdg.mesh.generators import periodic_square_mesh
+    from incompressibleeulerhdg.models.problems import DoubleLayerShearFlow
 
     disc = HDGDiscretisation(periodic_square_mesh(8), 1)
     dt = 0.05
@@ -372,8 +372,8 @@ def test_slab_step_matches_single_device_periodic():
 def test_slab_periodic_collective_audit():
     """The periodic distributed step also lowers to halos + reductions only:
     zero all-gathers (the wrap seam rides the circular ppermute entry)."""
-    from incompressibleeulerhdg_tpu.mesh.generators import periodic_square_mesh
-    from incompressibleeulerhdg_tpu.models.problems import DoubleLayerShearFlow
+    from incompressibleeulerhdg.mesh.generators import periodic_square_mesh
+    from incompressibleeulerhdg.models.problems import DoubleLayerShearFlow
 
     disc = HDGDiscretisation(periodic_square_mesh(8), 1)
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, 0.05)
@@ -404,8 +404,8 @@ def test_slab_periodic_collective_audit():
 def test_n_devices_gspmd_fallback_on_disk_mesh():
     """n_devices > 1 on an unstructured mesh routes to the GSPMD cell/facet
     sharding fallback and matches the single-device solve."""
-    from incompressibleeulerhdg_tpu.mesh.generators import unit_disk_mesh
-    from incompressibleeulerhdg_tpu.models.problems import KelvinHelmholtz
+    from incompressibleeulerhdg.mesh.generators import unit_disk_mesh
+    from incompressibleeulerhdg.models.problems import KelvinHelmholtz
 
     def run(n_devices):
         disc = HDGDiscretisation(unit_disk_mesh(1), 1)
@@ -427,8 +427,8 @@ def test_n_devices_gspmd_fallback_on_disk_mesh():
 def test_n_devices_gspmd_tracer():
     """Tracer advection composes with the GSPMD fallback (sharded cell
     fields, replicated CG projection operators)."""
-    from incompressibleeulerhdg_tpu.mesh.generators import unit_disk_mesh
-    from incompressibleeulerhdg_tpu.models.problems import KelvinHelmholtz
+    from incompressibleeulerhdg.mesh.generators import unit_disk_mesh
+    from incompressibleeulerhdg.models.problems import KelvinHelmholtz
 
     q0 = lambda x, y: jnp.sin(2.0 * x) * jnp.cos(2.0 * y)
 
@@ -520,7 +520,7 @@ def test_n_devices_conforming_gspmd():
     """The conforming RT1xDG0 scheme distributes through the GSPMD fallback
     (its RT dof state has no cell-sized leading axis and stays replicated;
     only the operator tables shard) and matches the single-device solve."""
-    from incompressibleeulerhdg_tpu.timesteppers.conforming_implicit import (
+    from incompressibleeulerhdg.timesteppers.conforming_implicit import (
         IncompressibleEulerConformingImplicit,
     )
 
@@ -548,8 +548,7 @@ def test_slab_scale_smoke_f32():
     """Pre-capture tripwire for SCALE-DEPENDENT numerics (VERDICT round 3,
     weak #1/#8: the 512^2 f32 fused-GMRES NaN was invisible to every
     small-mesh test): one slab-decomposed IMEX step at nx=256 in float32 on
-    the 8-device CPU mesh must stay finite with sane iteration counts —
-    no TPU needed."""
+    the 8-device CPU mesh must stay finite with sane iteration counts."""
     import os
 
     disc = HDGDiscretisation(unit_square_mesh(256), 2, dtype=jnp.float32)
@@ -581,11 +580,11 @@ def test_slab_scale_smoke_f32():
 def test_slab_supported_predicate():
     """slab_supported mirrors the SlabDecomposition constructor checks
     without raising (the periodic-uneven fallback gate)."""
-    from incompressibleeulerhdg_tpu.mesh.generators import (
+    from incompressibleeulerhdg.mesh.generators import (
         periodic_square_mesh,
         unit_disk_mesh,
     )
-    from incompressibleeulerhdg_tpu.parallel.slab import slab_supported
+    from incompressibleeulerhdg.parallel.slab import slab_supported
 
     sq = unit_square_mesh(8)
     per = periodic_square_mesh(8)
@@ -606,8 +605,8 @@ def test_n_devices_periodic_uneven_falls_back_to_gspmd():
     fall back to GSPMD automatically instead of erroring (round-4 verdict,
     missing #3; the reference's MPI decomposition has no such restriction)
     and match the single-device solve."""
-    from incompressibleeulerhdg_tpu.mesh.generators import periodic_square_mesh
-    from incompressibleeulerhdg_tpu.models.problems import DoubleLayerShearFlow
+    from incompressibleeulerhdg.mesh.generators import periodic_square_mesh
+    from incompressibleeulerhdg.models.problems import DoubleLayerShearFlow
 
     def run(n_devices):
         disc = HDGDiscretisation(periodic_square_mesh(8), 1)

@@ -9,13 +9,13 @@ at the expected rate under mesh/timestep refinement.
 import numpy as np
 import pytest
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh
-from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
-from incompressibleeulerhdg_tpu.models.problems import TaylorGreen
-from incompressibleeulerhdg_tpu.timesteppers.hdg_implicit import (
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh
+from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
+from incompressibleeulerhdg.models.problems import TaylorGreen
+from incompressibleeulerhdg.timesteppers.hdg_implicit import (
     IncompressibleEulerHDGImplicit,
 )
-from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+from incompressibleeulerhdg.timesteppers.hdg_imex import (
     IncompressibleEulerHDGIMEXSSP2_332,
     IncompressibleEulerHDGIMEXImplicit,
 )
@@ -63,7 +63,7 @@ def test_hdg_imex_ssp2_second_order():
 def test_dg_implicit_taylor_green():
     """DG implicit scheme (monolithic FGMRES) solves the vortex accurately
     and converges under refinement."""
-    from incompressibleeulerhdg_tpu.timesteppers.dg_implicit import (
+    from incompressibleeulerhdg.timesteppers.dg_implicit import (
         IncompressibleEulerDGImplicit,
     )
 
@@ -83,7 +83,7 @@ def test_hdg_monolithic_taylor_green():
 
 def test_conforming_projection_taylor_green():
     """Conforming RT1 x DG0, projection branch: first-order convergence."""
-    from incompressibleeulerhdg_tpu.timesteppers.conforming_implicit import (
+    from incompressibleeulerhdg.timesteppers.conforming_implicit import (
         IncompressibleEulerConformingImplicit,
     )
 
@@ -94,7 +94,7 @@ def test_conforming_projection_taylor_green():
 
 
 def test_conforming_monolithic_taylor_green():
-    from incompressibleeulerhdg_tpu.timesteppers.conforming_implicit import (
+    from incompressibleeulerhdg.timesteppers.conforming_implicit import (
         IncompressibleEulerConformingImplicit,
     )
 
@@ -125,7 +125,7 @@ def test_imex_unsplit_second_order():
 def test_imex_ars2_and_ssp3_run_accurately():
     """ARS2(2,3,2) and SSP3(4,3,3) tableaus integrate the vortex accurately
     (second/third-order schemes: tiny errors at dt = 0.1)."""
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+    from incompressibleeulerhdg.timesteppers.hdg_imex import (
         IncompressibleEulerHDGIMEXARS2_232,
         IncompressibleEulerHDGIMEXSSP3_433,
     )
@@ -138,7 +138,7 @@ def test_imex_ars2_and_ssp3_run_accurately():
 
 def test_imex_ars3_five_stage_runs():
     """ARS3(4,4,3): 5 stages with the corrected b_impl weights."""
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+    from incompressibleeulerhdg.timesteppers.hdg_imex import (
         IncompressibleEulerHDGIMEXARS3_443,
     )
 
@@ -166,7 +166,7 @@ def test_higher_degree_k2():
 def test_pressure_solver_benchmark_api():
     """--test_pressure_solver path: working signature (reference's is stale,
     SURVEY.md section 3.2)."""
-    from incompressibleeulerhdg_tpu.fem.discretisation import HDGDiscretisation
+    from incompressibleeulerhdg.fem.discretisation import HDGDiscretisation
 
     disc = HDGDiscretisation(unit_square_mesh(4), 1)
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, 0.1)
@@ -179,7 +179,7 @@ def test_imex_with_tracer():
     """IMEX tracer staging (hdg_imex.py:415-448): a smooth tracer advected by
     the decaying vortex stays bounded and conserves mass reasonably."""
     import jax.numpy as jnp
-    from incompressibleeulerhdg_tpu.ops import fields as F
+    from incompressibleeulerhdg.ops import fields as F
 
     disc = HDGDiscretisation(unit_square_mesh(4), 1)
     stepper = IncompressibleEulerHDGIMEXSSP2_332(disc, 0.1)
@@ -194,11 +194,11 @@ def test_pressure_solve_on_disk_mesh():
     """Unstructured (disk) meshes take the Chebyshev coarse path of the GTMG
     preconditioner and still converge in few iterations."""
     import jax.numpy as jnp
-    from incompressibleeulerhdg_tpu.mesh.generators import unit_disk_mesh
-    from incompressibleeulerhdg_tpu.linalg.condense import build_condensed_system
-    from incompressibleeulerhdg_tpu.linalg.gtmg import build_gtmg, gtmg_apply
-    from incompressibleeulerhdg_tpu.linalg.pressure import pressure_solve
-    from incompressibleeulerhdg_tpu.ops import fields as F
+    from incompressibleeulerhdg.mesh.generators import unit_disk_mesh
+    from incompressibleeulerhdg.linalg.condense import build_condensed_system
+    from incompressibleeulerhdg.linalg.gtmg import build_gtmg, gtmg_apply
+    from incompressibleeulerhdg.linalg.pressure import pressure_solve
+    from incompressibleeulerhdg.ops import fields as F
 
     disc = HDGDiscretisation(unit_disk_mesh(3), 1)
     g = disc.geom
@@ -217,7 +217,7 @@ def test_pressure_solve_on_disk_mesh():
 
 
 def test_float32_fast_path():
-    """The dtype config axis: the f32 TPU fast path produces a solution
+    """The dtype config axis: the f32 fast path produces a solution
     within f32-appropriate distance of the f64 one (dtype-scaled solver
     tolerances engage automatically)."""
     import jax.numpy as jnp
@@ -321,8 +321,8 @@ def test_lagged_preconditioner_matches(monkeypatch):
     default path to solver tolerance, with iteration counts free to
     differ slightly."""
     import numpy as np
-    from incompressibleeulerhdg_tpu.models.problems import TaylorGreen
-    from incompressibleeulerhdg_tpu.timesteppers.hdg_imex import (
+    from incompressibleeulerhdg.models.problems import TaylorGreen
+    from incompressibleeulerhdg.timesteppers.hdg_imex import (
         IncompressibleEulerHDGIMEXARS2_232,
     )
 

@@ -1,4 +1,4 @@
-"""Microbenchmarks of TPU gather/layout primitives at production sizes.
+"""Microbenchmarks of gather/layout primitives at production sizes.
 
 Informs the batch-last layout refactor: which facet<->cell data-movement
 pattern is fastest on real hardware.  Not part of the test suite.
@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
-from incompressibleeulerhdg_tpu.mesh.generators import unit_square_mesh
+from incompressibleeulerhdg.mesh.generators import unit_square_mesh
 
 NX = int(os.environ.get("MB_NX", 256))
 
@@ -84,11 +84,11 @@ def main():
            jax.jit(lambda G, C: jnp.einsum("tiq,tqn->in", G, C)), G, C,
            bytes_moved=(6 * 8 + 100) * nc * 4)
 
-    # (f) Gauss-Jordan inverse (20,20,nf)
-    from incompressibleeulerhdg_tpu.linalg.smallinv import gauss_jordan_inv_bl
+    # (f) batched block inverse (20,20,nf)
+    from incompressibleeulerhdg.linalg.smallinv import inv_bl
     Df = jnp.asarray(rng.standard_normal((20, 20, nf)), f32) + 10.0 * jnp.eye(20, dtype=f32)[:, :, None]
-    timeit("gauss-jordan inv (20,20,nf)", jax.jit(gauss_jordan_inv_bl), Df, n=3,
-           bytes_moved=2 * 400 * nf * 4 * 20)
+    timeit("batched inverse (20,20,nf)", jax.jit(inv_bl), Df, n=3,
+           bytes_moved=2 * 400 * nf * 4)
 
     # (g) current assemble pattern: (nc,3,20) where-select sum
     z0 = jnp.asarray(rng.standard_normal((nf, 20)), f32)
